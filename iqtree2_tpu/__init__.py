@@ -1,8 +1,7 @@
-"""iqtree2_tpu — a TPU-native phylogenomic maximum-likelihood framework.
+"""iqtree2_tpu — a phylogenomic maximum-likelihood framework on JAX.
 
-A from-scratch re-design of the capabilities of IQ-TREE 2 (reference:
-/root/reference) for TPU hardware: Felsenstein pruning expressed as batched
-JAX einsums over per-site partial-likelihood tensors, substitution models via
+A from-scratch re-design of the capabilities of IQ-TREE 2 for accelerators
+through JAX/XLA: Felsenstein pruning expressed as batched JAX einsums over per-site partial-likelihood tensors, substitution models via
 eigendecomposition, branch-length Newton optimization through theta buffers,
 stochastic NNI tree search driven from the host, UFBoot replicates and
 ModelFinder grids as extra batch dimensions, and site sharding across device

@@ -1,7 +1,3 @@
-import os
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
-
 from iqtree2_tpu.cli import main
 
 raise SystemExit(main())

@@ -261,7 +261,9 @@ def run_analysis(params: Params) -> dict:
     # ---------------- distributed search (MPI-mode analog) ----------------
     gossip = None
     dist_rank, dist_nranks = params.dist_rank, params.dist_nranks
-    if dist_nranks > 1:
+    if dist_nranks > 1 or params.dist_dir:
+        # a gossip directory selects the BSP-deterministic search even
+        # for one rank, whose tree every rank count reproduces
         from iqtree2_tpu.parallel.multihost import FileGossip
         if not params.dist_dir:
             raise SystemExit("--dist-nranks > 1 requires --dist-dir "

@@ -4,7 +4,7 @@ The core data structure of the whole framework (reference analog:
 alignment/alignment.cpp buildPattern :1725): each unique alignment column is
 stored once together with its frequency (number of sites showing it). All
 downstream likelihood math is per *pattern*, weighted by frequency — this is
-also the TPU data-parallel axis.
+also the data-parallel (device-sharded) axis.
 """
 
 from __future__ import annotations

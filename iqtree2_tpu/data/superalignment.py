@@ -6,7 +6,7 @@ Reference analogs: SuperAlignment (alignment/superalignment.h:41) holding
 bootstrap (:1294); partition files parsed from NEXUS sets blocks or
 RAxML-style lists (readPartition / readPartitionRaxml).
 
-TPU-first design: every partition's alignment is expanded to the *union*
+Design: every partition's alignment is expanded to the *union*
 taxon set, with absent taxa encoded as fully-unknown sequences. An
 all-unknown tip contributes a vector of ones to the pruning recursion
 (row-stochastic P maps 1 -> 1), so this is mathematically identical to

@@ -39,8 +39,8 @@ def write_iqtree_report(path, *, params, aln, model, rates, tree, logL,
 
     out = []
     a = out.append
-    a(f"IQ-TREE-TPU {iqtree2_tpu.__version__} — TPU-native phylogenomic "
-      "inference (capability parity target: IQ-TREE 2)")
+    a(f"iqtree2_tpu {iqtree2_tpu.__version__} — phylogenomic inference "
+      "on JAX (capability parity target: IQ-TREE 2)")
     a(f"Date: {time.strftime('%c')}")
     a("")
     a("INPUT DATA")
@@ -164,7 +164,7 @@ def write_partition_report(path, *, params, sa, peng, model_strs, tree,
 
     out = []
     a = out.append
-    a(f"IQ-TREE-TPU {iqtree2_tpu.__version__} — partitioned analysis")
+    a(f"iqtree2_tpu {iqtree2_tpu.__version__} — partitioned analysis")
     a(f"Date: {time.strftime('%c')}")
     a("")
     a("INPUT DATA")

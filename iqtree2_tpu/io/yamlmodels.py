@@ -21,7 +21,6 @@ Models registered here become usable in -m strings.
 from __future__ import annotations
 
 import numpy as np
-import yaml
 
 from iqtree2_tpu.data import seqtypes
 from iqtree2_tpu.data.seqtypes import SeqType, _build
@@ -57,8 +56,16 @@ def _build_datatype(d: dict) -> SeqType:
 def load_definitions(path: str) -> tuple[list[str], list[str]]:
     """Parse a --mdef YAML file into the global registries.
 
-    Returns (new datatype names, new model names)."""
-    docs = yaml.safe_load(open(path))
+    Returns (new datatype names, new model names). Needs PyYAML, which
+    only --mdef uses."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError(
+            "--mdef model definitions need PyYAML (the 'yaml' module), "
+            "which is not installed") from e
+    with open(path) as f:
+        docs = yaml.safe_load(f)
     if isinstance(docs, dict):
         docs = [docs]
     dts, mds = [], []

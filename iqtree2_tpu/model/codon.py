@@ -4,8 +4,7 @@ Reference analog: ModelCodon (model/modelcodon.cpp): Q over the 61 sense
 codons (standard code); substitutions only between codons differing at one
 position; rate = kappa^(is transition) * omega^(is nonsynonymous) * target
 factor (GY: codon frequency pi_j; MG: target-nucleotide frequency). Both are
-time-reversible, so the engine's symmetrized eigendecomposition applies; the
-61-state contraction pads to 64 on the MXU naturally (SURVEY §7 step 6).
+time-reversible, so the engine's symmetrized eigendecomposition applies.
 
 Codon frequency options: F (F61, counted codon frequencies), F1X4, F3X4
 (products of positional nucleotide frequencies), FQ (equal).

@@ -5,7 +5,7 @@ Reference analogs: RateHeterotachy (model/rateheterotachy.cpp) +
 PhyloTreeMixlen (tree/phylotreemixlen.cpp — per-category lengths via EM +
 per-category Newton, computeLikelihoodDervMixlen).
 
-TPU mapping: branch lengths become a [n_edges, H] tensor; the transition
+Device mapping: branch lengths become a [n_edges, H] tensor; the transition
 builder broadcasts per-category lengths (ops/pruning.transition_tensors
 accepts 2-D blens), so the SAME pruning kernels serve +H with zero extra
 kernel code. Branch optimization uses the mixlen coordinate-Newton on the

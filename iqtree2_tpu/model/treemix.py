@@ -5,7 +5,7 @@ Reference analog: IQTreeMix (tree/iqtreemix.h:21, computeLikelihood
 tree/iqtreemix.cpp:586): L(p) = sum_t w_t L_t(p); weights by EM; branch
 lengths per tree by EM-weighted per-tree optimization.
 
-TPU mapping: the T schedules have identical array shapes (same ntaxa), so
+Device mapping: the T schedules have identical array shapes (same ntaxa), so
 per-tree site likelihoods batch on a leading tree axis; the EM M-step for
 tree t's branch lengths reuses the standard all-branch Newton with the
 posterior-weighted pattern weights (the exact EM surrogate).

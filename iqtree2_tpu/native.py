@@ -1,11 +1,12 @@
 """ctypes bindings for the native host runtime (native/iqtree2_native.cpp).
 
-The .so is built on demand with g++ (cached next to the source); every
-entry point has a pure-Python/numpy fallback so the package works without
-a toolchain. Covered components (reference analogs in the .cpp):
+The .so is built from the committed source on first use with g++ (cached
+next to the source, never committed); every entry point has a
+pure-Python/numpy fallback so the package works without a toolchain.
+Covered components (reference analogs in the .cpp):
   - pattern compression (alignment/alignment.cpp:1725)
   - bit-parallel Fitch scoring (tree/phylotreepars.cpp:32)
-  - streaming-kernel schedule planning (plan2 phases 1+2)
+  - randomized stepwise-addition parsimony trees (tree/iqtree.cpp:746)
 """
 
 from __future__ import annotations
@@ -36,10 +37,17 @@ def _load():
         try:
             if not _SO.exists() or \
                     _SO.stat().st_mtime < _SRC.stat().st_mtime:
-                subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-                     "-o", str(_SO), str(_SRC)],
-                    check=True, capture_output=True, timeout=120)
+                # build under a private name and rename into place, so
+                # processes building concurrently never load a partial file
+                tmp = _SO.with_suffix(f".{os.getpid()}.tmp")
+                try:
+                    subprocess.run(
+                        ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                         "-o", str(tmp), str(_SRC)],
+                        check=True, capture_output=True, timeout=120)
+                    os.replace(tmp, _SO)
+                finally:
+                    tmp.unlink(missing_ok=True)
             lib = ctypes.CDLL(str(_SO))
             i32p = ctypes.POINTER(ctypes.c_int32)
             u64p = ctypes.POINTER(ctypes.c_uint64)
@@ -51,9 +59,10 @@ def _load():
             lib.it2_fitch_score.restype = ctypes.c_double
             lib.it2_fitch_score.argtypes = [u64p, f64p, i32p, i64, i64,
                                             i64, u64p]
-            lib.it2_plan_stream.restype = i64
-            lib.it2_plan_stream.argtypes = [i32p, i64, i64, i64, i32p,
-                                            i32p, i32p, i64, i32p, i32p]
+            i64p = ctypes.POINTER(ctypes.c_int64)
+            lib.it2_stepwise_addition.restype = None
+            lib.it2_stepwise_addition.argtypes = [u64p, i64p, i64, i64, i64,
+                                                  i64, i64p, i64p]
             _lib = lib
         except Exception:
             _lib = None
@@ -104,30 +113,30 @@ def fitch_score(masks: np.ndarray, weights: np.ndarray,
         _ptr(scratch, ctypes.c_uint64)))
 
 
-def plan_stream(child_src: np.ndarray, L: int, G: int):
-    """Streaming-plan phases 1+2 (native): returns (step_of, slot_of,
-    src_blk [n_steps, 2], dst_blk, dst_slot, n_steps, ring_blocks) or
-    None."""
+def stepwise_addition(masks: np.ndarray, weights: np.ndarray,
+                      seq: list[int]) -> np.ndarray | None:
+    """Insertion edges [len(seq) - 3, 2] (child, parent) of randomized
+    stepwise addition in the order ``seq`` (the first three taxa form the
+    start star), or None when native is unavailable or the pattern
+    weights are not small non-negative integers (the Python version sums
+    them as floats)."""
     lib = _load()
     if lib is None:
         return None
-    cs = np.ascontiguousarray(child_src, dtype=np.int32)
-    n_int = cs.shape[0]
-    step_of = np.empty(n_int, np.int32)
-    slot_of = np.empty(n_int, np.int32)
-    cap = 2 * (n_int + 2)
-    src_blk = np.zeros(cap, np.int32)
-    dst_blk = np.empty(n_int, np.int32)
-    dst_slot = np.empty(n_int, np.int32)
-    r = lib.it2_plan_stream(
-        _ptr(cs, ctypes.c_int32), n_int, L, G,
-        _ptr(step_of, ctypes.c_int32), _ptr(slot_of, ctypes.c_int32),
-        _ptr(src_blk, ctypes.c_int32), cap,
-        _ptr(dst_blk, ctypes.c_int32), _ptr(dst_slot, ctypes.c_int32))
-    if r < 0:
+    w = np.asarray(weights, np.float64)
+    if w.size and (w.min() < 0 or w.max() >= 2 ** 40
+                   or not np.all(w == np.round(w))):
         return None
-    n_steps = int(r >> 32)
-    ring_blocks = int(r & 0xFFFFFFFF)
-    return (step_of, slot_of,
-            src_blk[: 2 * n_steps].reshape(n_steps, 2).copy(),
-            dst_blk, dst_slot, n_steps, ring_blocks)
+    wint = np.ascontiguousarray(w, dtype=np.int64)
+    masks = np.ascontiguousarray(masks, dtype=np.uint64)
+    L, P = masks.shape
+    S = int(np.bitwise_or.reduce(masks, axis=None)).bit_length() if masks.size \
+        else 0
+    nwbits = int(wint.max()).bit_length() if wint.size else 0
+    seq_a = np.ascontiguousarray(seq, dtype=np.int64)
+    out = np.empty((max(L - 3, 0), 2), np.int64)
+    lib.it2_stepwise_addition(
+        _ptr(masks, ctypes.c_uint64), _ptr(wint, ctypes.c_int64), L, P,
+        max(S, 1), nwbits, _ptr(seq_a, ctypes.c_int64),
+        _ptr(out, ctypes.c_int64))
+    return out

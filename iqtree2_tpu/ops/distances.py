@@ -3,7 +3,7 @@ distances.
 
 Reference analogs: utils/hammingdistance.h (vectorized observed distance),
 alignment/alignmentpairwise.cpp (per-pair ML distance via 1-D Newton on the
-pair frequency table — SURVEY A11). TPU design: all T = L(L-1)/2 pair tables
+pair frequency table — SURVEY A11). Here all T = L(L-1)/2 pair tables
 are built once ([T, S, S]) and Newton runs batched over pairs on device —
 one shot instead of the reference's OpenMP pair loop.
 """

@@ -122,7 +122,7 @@ def sankoff_score_device(tree: Tree, codes: np.ndarray,
                          weights: np.ndarray, cost: np.ndarray,
                          tip_table: np.ndarray) -> float:
     """On-chip Sankoff: the min-plus analog of the level-batched pruning
-    scan (ops/pruning._down_pass_xla) over the same TreeSchedule arrays —
+    scan (ops/pruning.down_pass) over the same TreeSchedule arrays —
     each step does one batched [G, 2, S, S, P] min-reduction instead of a
     sum-product contraction. Reference: the Sankoff kernel of
     tree/phylotreepars.cpp:636 (computePartialParsimonySankoff).
@@ -174,6 +174,18 @@ def sankoff_score_device(tree: Tree, codes: np.ndarray,
                      jnp.asarray(weights, jnp.float32)))
 
 
+def _insert_leaf(tree: Tree, leaf: int, a: int, b: int):
+    """Split edge (a, b) by a new node carrying ``leaf``; returns (new
+    node, the edge's old length)."""
+    mid = tree.new_node()
+    lold = tree.get_blen(a, b)
+    tree.remove_edge(a, b)
+    tree.add_edge(a, mid, lold * 0.5)
+    tree.add_edge(mid, b, lold * 0.5)
+    tree.add_edge(mid, leaf, 0.1)
+    return mid, lold
+
+
 def random_stepwise_addition(aln: Alignment, rng: np.random.Generator,
                              subsample: int | None = None,
                              constraint=None) -> Tree:
@@ -182,6 +194,8 @@ def random_stepwise_addition(aln: Alignment, rng: np.random.Generator,
     Insert taxa in random order, each at the edge minimizing the Fitch
     insertion cost (batched over all candidate edges). Reference analog:
     pllComputeRandomizedStepwiseAdditionParsimonyTree (tree/iqtree.cpp:746).
+    Without a constraint the native library picks the edges (the same
+    ones, bit-sliced over patterns); this Python loop is its fallback.
 
     constraint: optional TopologyConstraint (-g) — insertion edges that
     would break a constraint split are rejected (cheapest compatible edge
@@ -205,8 +219,16 @@ def random_stepwise_addition(aln: Alignment, rng: np.random.Generator,
     hub = tree.new_node()
     for x in first3:
         tree.add_edge(hub, x, 0.1)
+    rest = list(reversed(order))
+    if constraint is None:
+        from iqtree2_tpu import native
+        chosen = native.stepwise_addition(masks, w, first3 + rest)
+        if chosen is not None:
+            for leaf, (a, b) in zip(rest, chosen):
+                _insert_leaf(tree, leaf, int(a), int(b))
+            return tree
 
-    for leaf in reversed(order):
+    for leaf in rest:
         # Fitch down+up sets for the current tree, per edge.
         # Root at the hub: the partial tree may not contain leaf 0 yet,
         # so Tree._default_root() is not usable here.
@@ -254,33 +276,20 @@ def random_stepwise_addition(aln: Alignment, rng: np.random.Generator,
         x = masks[leaf][None, :]                  # [1, P]
         delta = (((C & x) == 0) * w[None, :]).sum(axis=1)
 
-        def insert(a, b):
-            mid = tree.new_node()
-            lold = tree.get_blen(a, b)
-            tree.remove_edge(a, b)
-            tree.add_edge(a, mid, lold * 0.5)
-            tree.add_edge(mid, b, lold * 0.5)
-            tree.add_edge(mid, leaf, 0.1)
-            return mid, lold
-
-        def undo(mid, a, b, lold):
-            tree.remove_edge(a, mid)
-            tree.remove_edge(mid, b)
-            tree.remove_edge(mid, leaf)
-            tree.add_edge(a, b, lold)
-
         if constraint is None or leaf not in constraint.mask:
-            a, b = edges[int(np.argmin(delta))]
-            insert(a, b)
+            _insert_leaf(tree, leaf, *edges[int(np.argmin(delta))])
         else:
             placed = False
             for ei in np.argsort(delta):
                 a, b = edges[int(ei)]
-                mid, lold = insert(a, b)
+                mid, lold = _insert_leaf(tree, leaf, a, b)
                 if constraint.compatible(tree):
                     placed = True
                     break
-                undo(mid, a, b, lold)
+                tree.remove_edge(a, mid)          # undo
+                tree.remove_edge(mid, b)
+                tree.remove_edge(mid, leaf)
+                tree.add_edge(a, b, lold)
             if not placed:   # no compatible edge (should not happen)
-                insert(*edges[int(np.argmin(delta))])
+                _insert_leaf(tree, leaf, *edges[int(np.argmin(delta))])
     return tree

@@ -6,7 +6,7 @@ quartets (a,b,c,d), compute the ML logL of the three quartet topologies
 quartet onto the barycentric simplex — corner/edge/center region counts
 diagnose tree-likeness of the data.
 
-TPU design: the CPU reference evaluates quartets one at a time in an OpenMP
+Design: the CPU reference evaluates quartets one at a time in an OpenMP
 loop (tree/quartet.cpp:676); here all quartets are a leading batch axis of
 one jitted function — topology logLs with a 5-branch Newton (full 5x5
 Hessian via autodiff) vmapped over the batch.

@@ -87,7 +87,7 @@ def _msg_T(Pk: SSFPack, out, t):
 
 
 def ssf_down_pass(blens, tipP, sched, Pk: SSFPack):
-    """Level-batched post-order sweep (mirror of pruning._down_pass_xla)."""
+    """Level-batched post-order sweep (mirror of pruning.down_pass)."""
     dtype = tipP.dtype
     thresh, rescale, _ = pruning.scaling_consts(dtype)
     child_src = sched["child_src"]
@@ -126,7 +126,7 @@ def ssf_down_pass(blens, tipP, sched, Pk: SSFPack):
 
 
 def ssf_up_pass(blens, dp, tipP, sched, Pk: SSFPack):
-    """Pre-order outside partials (mirror of pruning._up_pass_xla)."""
+    """Pre-order outside partials (mirror of pruning.up_pass)."""
     dtype = dp.all.dtype
     thresh, rescale, _ = pruning.scaling_consts(dtype)
     child_src = sched["child_src"]

@@ -17,10 +17,11 @@ run (the reference's MPI mode makes no such guarantee).
 
 Transports:
   - FileGossip: shared-directory barrier files (works for multi-process
-    tests and pod-slice shared filesystems)
+    tests and cluster shared filesystems)
   - JaxGossip: jax.experimental.multihost_utils.process_allgather over
-    the jax.distributed control plane (TPU pods; numeric site-sharding
-    rides the jax Mesh independently — SURVEY §2c distributed reduction)
+    the jax.distributed control plane (multi-process jobs; numeric
+    site-sharding rides the jax Mesh independently — SURVEY §2c
+    distributed reduction)
 
 init_distributed() wires jax.distributed.initialize() from standard env
 vars when present.

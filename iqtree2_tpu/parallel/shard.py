@@ -5,7 +5,7 @@ axis. Each device holds a pattern shard of the tip partials and pattern
 weights; the pruning recursion runs independently per shard (site
 likelihoods are independent given the tree — no halo exchange), and the only
 cross-device communication is a psum of logL and branch-derivative scalars
-over ICI. This goes beyond the reference, whose MPI ranks each hold the
+across devices. This goes beyond the reference, whose MPI ranks each hold the
 whole alignment (main/main.cpp:2506 — MPI only parallelizes search).
 
 The mesh axis is named "sites". Model pack and topology schedule are
@@ -108,14 +108,17 @@ def sharded_rell_fn(mesh: Mesh):
     """UFBoot RELL rescoring [R, P] @ [P] with the pattern axis sharded
     over the mesh (reference analog: per-rank replicate slices,
     tree/iqtree.cpp:352-362 — here each device holds a SITE slice of all
-    replicates and one psum over ICI yields every replicate's score)."""
+    replicates and one psum yields every replicate's score)."""
 
     @functools.partial(
         jax.shard_map, mesh=mesh,
         in_specs=(P(None, AXIS), P(AXIS)), out_specs=P(),
         check_vma=False)
     def rell(samples, lp):
-        return jax.lax.psum(samples @ lp, AXIS)
+        # HIGHEST for the reason given in UFBoot.enable_device_rell
+        return jax.lax.psum(jnp.matmul(samples, lp,
+                                       precision=jax.lax.Precision.HIGHEST),
+                            AXIS)
 
     return jax.jit(rell)
 
@@ -123,8 +126,8 @@ def sharded_rell_fn(mesh: Mesh):
 def sharded_nni_fn(mesh: Mesh, pack, n_newton: int = 4):
     """Batched NNI candidate scoring with every per-pattern buffer (down
     partials, outside partials, weights) sharded on the sites axis; Newton
-    derivative sums psum over ICI (round-2/3 ask: the batch workloads ride
-    the mesh, not just plain logL)."""
+    derivative sums psum across devices (the batch workloads ride the
+    mesh, not just plain logL)."""
     from iqtree2_tpu.ops.nni import evaluate_nnis
 
     dp_spec = pruning.DownPass(P(None, None, None, AXIS), P(None, AXIS))

@@ -5,7 +5,7 @@ parallel likelihood :701-777), PhyloSuperTreePlen (edge-linked proportional
 partitions, tree/phylosupertreeplen.h:38), PhyloSuperTreeUnlinked, and
 PartitionModel/PartitionModelPlen (model/partitionmodel.cpp).
 
-TPU-first design: all partitions share one tree schedule (the supermatrix
+Design: all partitions share one tree schedule (the supermatrix
 union taxon set — see data/superalignment.py), so one jitted program handles
 every partition; the partition loop is unrolled *inside* jit (static K) and
 XLA overlaps the per-partition einsum pipelines. Branch-length Newton is

@@ -6,7 +6,7 @@ under a nonreversible model the likelihood depends on where the root sits,
 so every branch is evaluated as a candidate root position and the set of
 rootings is compared with the usual topology-test machinery (AU/KH/...).
 
-TPU-first design (differs from the reference's per-root tree loop):
+Design (differs from the reference's per-root tree loop):
 
 * A rooting of branch (a,b) is represented by splicing a degree-3 node r
   into the branch and attaching a pseudo-taxon ``__ROOT__`` (all-missing

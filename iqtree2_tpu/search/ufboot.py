@@ -62,7 +62,11 @@ class UFBoot:
         Pn = self.samples.shape[1]
         if mesh is None:
             self._dev_samples = jnp.asarray(self.samples)
-            self._rell_fn = jax.jit(lambda s, lp: s @ lp)
+            # HIGHEST: ~1e4 pattern terms of ~1e1 sum to scores ~-2e4;
+            # TF32 inputs would err by ~10 log-units and pick the wrong
+            # replicate champion
+            self._rell_fn = jax.jit(lambda s, lp: jnp.matmul(
+                s, lp, precision=jax.lax.Precision.HIGHEST))
             self._rell_pad = 0
             self._lp_sharding = None
         else:

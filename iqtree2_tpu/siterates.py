@@ -2,7 +2,7 @@
 
 Reference: RateMeyerHaeseler / RateMeyerDiscrete (model/ratemeyer*.cpp,
 SURVEY #12): instead of a parametric +G law, each site gets its own ML
-rate on the fixed tree. TPU mapping: evaluate per-pattern log-likelihoods
+rate on the fixed tree. Here: evaluate per-pattern log-likelihoods
 on a log-spaced rate grid in ONE batched lax.map (every grid point scales
 ALL branch lengths), take the per-pattern argmax, then refine with one
 parabolic step — no per-site host loops.

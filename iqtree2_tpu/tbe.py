@@ -11,7 +11,7 @@ support counts only exact matches; TBE degrades gracefully on large trees.
 
 Implementation: bipartitions as packed bit matrices; the pairwise
 intersection sizes for one bootstrap tree are ONE integer matmul
-[R, L] x [L, B] — the TPU-native replacement for booster's per-edge
+[R, L] x [L, B] — the batched replacement for booster's per-edge
 postorder recursion.
 """
 

@@ -11,8 +11,8 @@ Nodes are additionally grouped into **level steps**: step s holds up to G
 independent internal nodes whose children were all computed in steps < s
 (greedy list scheduling on the child-dependency DAG). One pruning step is
 then a single batched [G*2*C, S, S] x [G*2*C, S, Ppat] contraction instead
-of one tiny matmul per node — this is what lets XLA fill the MXU / keep HBM
-streaming (SURVEY §7 "Small-state MXU utilization"; reference analog: the
+of one tiny matmul per node, so each step is one large fused operation
+instead of thousands of tiny launches (reference analog: the
 traversal worklist of computeTraversalInfo, tree/phylokernelnew.h:1150,
 which batches packets x traversal on CPU threads).
 

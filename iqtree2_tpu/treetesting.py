@@ -9,7 +9,7 @@ resamples per scale, per-tree win counts -> WLS fit of bp(r) to
 1 - Phi(d*sqrt(r) + c/sqrt(r)) by Newton iterations -> p_AU
 (Shimodaira 2002, the CONSEL procedure).
 
-TPU design: the resampling is a single [nboot, P] @ [P, ntrees] matmul per
+Design: the resampling is a single [nboot, P] @ [P, ntrees] matmul per
 scale instead of the reference's per-replicate loops.
 """
 

@@ -2,21 +2,54 @@
 // reference implements in C/C++ and that dominate HOST time at scale —
 // alignment pattern compression (reference: Alignment::buildPattern,
 // alignment/alignment.cpp:1725), bit-parallel Fitch parsimony
-// (tree/phylotreepars.cpp:32), and the streaming-kernel schedule planner
-// (the TPU-side analog of the traversal scheduler,
-// tree/phylokernelnew.h:1150 + memslot allocation, tree/memslot.h:44).
+// (tree/phylotreepars.cpp:32) and randomized stepwise addition
+// (tree/iqtree.cpp:746).
 //
 // Exposed through a plain C ABI consumed by iqtree2_tpu/native.py via
 // ctypes; every entry point is pure (caller-allocated buffers, no global
 // state) so the Python fallbacks remain drop-in equivalent.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <unordered_map>
 #include <vector>
 #include <string>
-#include <algorithm>
-#include <queue>
+#include <tuple>
+
+namespace {
+
+// State sets bit-sliced: plane s of a node holds bit s of the set for 64
+// patterns per word; a node's set is S planes of W words.
+struct Sets {
+    int64_t S, W;
+    std::vector<uint64_t> buf;
+    Sets(int64_t n, int64_t S_, int64_t W_)
+        : S(S_), W(W_), buf(static_cast<size_t>(n * S_ * W_), 0) {}
+    uint64_t* at(int64_t v) { return buf.data() + v * S * W; }
+};
+
+// Fitch combine a, b -> out (out may alias a or b): the intersection
+// where it is not empty, else the union.
+void fitch_combine(const uint64_t* a, const uint64_t* b, uint64_t* out,
+                   int64_t S, int64_t W) {
+    uint64_t inter[64];
+    for (int64_t w = 0; w < W; w++) {
+        uint64_t any = 0;
+        for (int64_t s = 0; s < S; s++) {
+            inter[s] = a[s * W + w] & b[s * W + w];
+            any |= inter[s];
+        }
+        for (int64_t s = 0; s < S; s++)
+            out[s * W + w] = inter[s] | (~any & (a[s * W + w] | b[s * W + w]));
+    }
+}
+
+void remove_first(std::vector<int64_t>& v, int64_t x) {
+    v.erase(std::find(v.begin(), v.end(), x));
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -85,120 +118,145 @@ double it2_fitch_score(const uint64_t* masks, const double* w,
 }
 
 // ---------------------------------------------------------------------
-// Streaming-kernel schedule planner (plan2 phases 1 + 2).
-// Inputs: child_src [n_int * 2] (unified rows), L, G.
-// Outputs (caller-allocated, sizes in the Python wrapper):
-//   step_of [n_int], slot_of [n_int], src_blk [n_steps_cap * 2],
-//   dst_row [n_int] (CS-pitch applied by Python), dst_sc [n_int].
-// Returns (n_steps << 32) | ring_blocks, or -1 on failure.
-int64_t it2_plan_stream(const int32_t* child_src, int64_t n_int,
-                        int64_t L, int64_t G,
-                        int32_t* step_of, int32_t* slot_of,
-                        int32_t* src_blk, int64_t src_blk_cap,
-                        int32_t* dst_blk, int32_t* dst_slot) {
-    std::vector<int32_t> n_left(n_int, 0);
-    std::vector<int32_t> parent(n_int, -1), pside(n_int, 0);
-    for (int64_t i = 0; i < n_int; i++) {
-        for (int k = 0; k < 2; k++) {
-            int64_t s = child_src[2 * i + k];
-            if (s >= L) {
-                n_left[i]++;
-                parent[s - L] = static_cast<int32_t>(i);
-                pside[s - L] = k;
+// Randomized stepwise-addition parsimony: the insertion edge of every
+// added taxon. masks: [L * P] uint64 per-pattern state bitmasks (S state
+// bits); wint: [P] integer weights below 2^nwbits; seq: [L] taxa, the
+// first three joined at hub node L, the rest inserted in order. Each taxon
+// goes on the first edge, in postorder from the hub, of least Fitch cost
+// against the state set at that edge; new internal nodes are L+1, L+2, ...
+// Adjacency order and every tie follow ops/pars.py's Python version step
+// for step, so both build the same tree. out: [(L - 3) * 2] (child,
+// parent) of each chosen edge.
+void it2_stepwise_addition(const uint64_t* masks, const int64_t* wint,
+                           int64_t L, int64_t P, int64_t S, int64_t nwbits,
+                           const int64_t* seq, int64_t* out) {
+    const int64_t W = (P + 63) / 64;
+    const int64_t n_nodes = 2 * L;
+    Sets leaf(L, S, W), down(n_nodes, S, W), up(n_nodes, S, W), ctx(1, S, W);
+    for (int64_t t = 0; t < L; t++)
+        for (int64_t p = 0; p < P; p++)
+            for (int64_t s = 0; s < S; s++)
+                if ((masks[t * P + p] >> s) & 1)
+                    leaf.at(t)[s * W + p / 64] |= uint64_t(1) << (p % 64);
+    // weight bit planes and the valid-pattern mask
+    std::vector<uint64_t> wbits(static_cast<size_t>(nwbits * W), 0);
+    std::vector<uint64_t> valid(static_cast<size_t>(W), 0);
+    for (int64_t p = 0; p < P; p++) {
+        valid[p / 64] |= uint64_t(1) << (p % 64);
+        for (int64_t k = 0; k < nwbits; k++)
+            if ((wint[p] >> k) & 1)
+                wbits[k * W + p / 64] |= uint64_t(1) << (p % 64);
+    }
+    std::vector<std::vector<int64_t>> adj(n_nodes);
+    auto add_edge = [&](int64_t a, int64_t b) {
+        adj[a].push_back(b);
+        adj[b].push_back(a);
+    };
+    const int64_t hub = L;
+    int64_t next_id = L + 1;
+    for (int k = 0; k < 3; k++) add_edge(hub, seq[k]);
+    std::vector<char> has_up(n_nodes);
+    std::vector<std::pair<int64_t, int64_t>> post;
+    std::vector<std::tuple<int64_t, int64_t, bool>> stack;
+    std::vector<int64_t> kids;
+    for (int64_t i = 3; i < L; i++) {
+        const int64_t leaf_id = seq[i];
+        // postorder from the hub (Tree.postorder)
+        post.clear();
+        stack.assign(1, {hub, -1, false});
+        while (!stack.empty()) {
+            auto [v, p, done] = stack.back();
+            stack.pop_back();
+            if (done) {
+                post.emplace_back(v, p);
+                continue;
+            }
+            stack.emplace_back(v, p, true);
+            for (int64_t u : adj[v])
+                if (u != p) stack.emplace_back(u, v, false);
+        }
+        // down sets
+        for (auto [v, p] : post) {
+            uint64_t* d = down.at(v);
+            if (v < L) {
+                std::memcpy(d, leaf.at(v), S * W * sizeof(uint64_t));
+                continue;
+            }
+            bool first = true;
+            for (int64_t u : adj[v]) {
+                if (u == p) continue;
+                if (first)
+                    std::memcpy(d, down.at(u), S * W * sizeof(uint64_t));
+                else
+                    fitch_combine(d, down.at(u), d, S, W);
+                first = false;
             }
         }
+        // up sets: the state set seen from each node's parent side
+        has_up[hub] = 0;
+        for (auto it = post.rbegin(); it != post.rend(); ++it) {
+            auto [v, p] = *it;
+            if (v < L) continue;
+            kids.clear();
+            for (int64_t u : adj[v])
+                if (u != p) kids.push_back(u);
+            for (int64_t u : kids) {
+                uint64_t* o = up.at(u);
+                bool first = true;
+                for (int64_t u2 : kids) {
+                    if (u2 == u) continue;
+                    if (first)
+                        std::memcpy(o, down.at(u2), S * W * sizeof(uint64_t));
+                    else
+                        fitch_combine(o, down.at(u2), o, S, W);
+                    first = false;
+                }
+                if (has_up[v]) {
+                    if (first)
+                        std::memcpy(o, up.at(v), S * W * sizeof(uint64_t));
+                    else
+                        fitch_combine(o, up.at(v), o, S, W);
+                    first = false;
+                }
+                has_up[u] = !first;
+            }
+        }
+        // insertion cost of each edge: weighted patterns whose edge set
+        // misses every state of the new taxon
+        const uint64_t* x = leaf.at(leaf_id);
+        int64_t best = -1, best_a = -1, best_b = -1;
+        for (auto [v, p] : post) {
+            if (p == -1) continue;
+            const uint64_t* c = down.at(v);
+            if (has_up[v]) {
+                fitch_combine(down.at(v), up.at(v), ctx.at(0), S, W);
+                c = ctx.at(0);
+            }
+            int64_t cost = 0;
+            for (int64_t w = 0; w < W; w++) {
+                uint64_t hit = 0;
+                for (int64_t s = 0; s < S; s++) hit |= c[s * W + w] & x[s * W + w];
+                const uint64_t miss = ~hit & valid[w];
+                for (int64_t k = 0; k < nwbits; k++)
+                    cost += static_cast<int64_t>(
+                        __builtin_popcountll(miss & wbits[k * W + w])) << k;
+            }
+            if (best < 0 || cost < best) {
+                best = cost;
+                best_a = v;
+                best_b = p;
+            }
+        }
+        out[2 * (i - 3)] = best_a;
+        out[2 * (i - 3) + 1] = best_b;
+        // insert: a - mid - b, mid - leaf (Tree.remove_edge/add_edge)
+        const int64_t mid = next_id++;
+        remove_first(adj[best_a], best_b);
+        remove_first(adj[best_b], best_a);
+        add_edge(best_a, mid);
+        add_edge(mid, best_b);
+        add_edge(mid, leaf_id);
     }
-    // ready heap: (consume-live-first, postorder index)
-    using Pr = std::pair<int, int64_t>;
-    std::priority_queue<Pr, std::vector<Pr>, std::greater<Pr>> ready;
-    for (int64_t i = 0; i < n_int; i++)
-        if (n_left[i] == 0)
-            ready.push({child_src[2 * i] >= L ||
-                        child_src[2 * i + 1] >= L ? 0 : 1, i});
-    int64_t done = 0, n_steps = 0;
-    std::vector<std::vector<int64_t>> steps;
-    while (done < n_int) {
-        std::vector<int64_t> cur;
-        while (!ready.empty() && static_cast<int64_t>(cur.size()) < G) {
-            cur.push_back(ready.top().second);
-            ready.pop();
-        }
-        if (cur.empty()) return -1;
-        for (size_t g = 0; g < cur.size(); g++) {
-            step_of[cur[g]] = static_cast<int32_t>(n_steps);
-            slot_of[cur[g]] = static_cast<int32_t>(g);
-        }
-        done += static_cast<int64_t>(cur.size());
-        for (int64_t i : cur) {
-            int32_t p = parent[i];
-            if (p >= 0 && --n_left[p] == 0)
-                ready.push({child_src[2 * p] >= L ||
-                            child_src[2 * p + 1] >= L ? 0 : 1, p});
-        }
-        steps.push_back(std::move(cur));
-        n_steps++;
-    }
-    if (n_steps * 2 > src_blk_cap) return -1;
-
-    // interval coloring of (step, side) RHS blocks
-    std::vector<int32_t> first_write(n_steps * 2, -1);
-    for (int64_t i = 0; i < n_int; i++) {
-        int32_t p = parent[i];
-        if (p < 0) continue;
-        int64_t slot2 = static_cast<int64_t>(step_of[p]) * 2 + pside[i];
-        if (first_write[slot2] < 0 || step_of[i] < first_write[slot2])
-            first_write[slot2] = step_of[i];
-    }
-    struct Iv { int32_t start, end, s, side; };
-    std::vector<Iv> ivs;
-    for (int64_t s = 0; s < n_steps; s++)
-        for (int side = 0; side < 2; side++)
-            if (first_write[s * 2 + side] >= 0)
-                ivs.push_back({first_write[s * 2 + side],
-                               static_cast<int32_t>(s),
-                               static_cast<int32_t>(s), side});
-    // identical tuple order to the Python planner (start, end, s, side)
-    std::sort(ivs.begin(), ivs.end(),
-              [](const Iv& a, const Iv& b) {
-                  if (a.start != b.start) return a.start < b.start;
-                  if (a.end != b.end) return a.end < b.end;
-                  if (a.s != b.s) return a.s < b.s;
-                  return a.side < b.side;
-              });
-    for (int64_t i = 0; i < n_steps * 2; i++) src_blk[i] = 0;
-    std::priority_queue<Pr, std::vector<Pr>, std::greater<Pr>> active;
-    std::vector<int32_t> freed;
-    int32_t next_blk = 1;
-    for (const Iv& iv : ivs) {
-        while (!active.empty() &&
-               active.top().first <= iv.start) {
-            freed.push_back(static_cast<int32_t>(active.top().second));
-            active.pop();
-        }
-        int32_t b;
-        if (!freed.empty()) {
-            b = freed.back();
-            freed.pop_back();
-        } else {
-            b = next_blk++;
-        }
-        src_blk[static_cast<int64_t>(iv.s) * 2 + iv.side] = b;
-        active.push({iv.end, b});
-    }
-    // destination block/slot per node
-    for (int64_t i = 0; i < n_int; i++) {
-        int32_t p = parent[i];
-        if (p < 0) {
-            dst_blk[i] = -2;
-            dst_slot[i] = -1;
-        } else {
-            dst_blk[i] = src_blk[static_cast<int64_t>(step_of[p]) * 2 +
-                                 pside[i]];
-            dst_slot[i] = slot_of[p];
-        }
-    }
-    int64_t ring_blocks = std::max<int64_t>(next_blk, 2);
-    return (n_steps << 32) | ring_blocks;
 }
 
 }  // extern "C"

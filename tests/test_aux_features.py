@@ -1,7 +1,7 @@
 """TBE supports, symmetry tests, and PD analysis."""
 import numpy as np
 
-from tests.test_pallas2 import _setup
+from tests.helpers import dna_problem
 from iqtree2_tpu.tree.topology import Tree
 from iqtree2_tpu.tbe import tbe_supports, transfer_distances, _split_matrix
 from iqtree2_tpu.symtest import divergence_matrix, pair_symtest, run_symtest
@@ -53,7 +53,7 @@ def test_symtest_symmetric_data_accepts():
 
 
 def test_symtest_runs_on_alignment():
-    eng, _ = _setup(6, npat=64, seed=3)
+    eng, _ = dna_problem(6, npat=64, seed=3)
     r = run_symtest(eng.aln)
     assert np.isfinite(r.bowker) and 0.0 <= r.p_bowker <= 1.0
 
@@ -149,8 +149,8 @@ def test_yaml_models_and_datatypes(tmp_path):
     assert np.isfinite(eng.loglik_tree(t))
 
     # nonreversible matrix model on DNA data
-    from tests.test_pallas2 import _setup
-    engd, td = _setup(5, npat=16, seed=3)
+    from tests.helpers import dna_problem
+    engd, td = dna_problem(5, npat=16, seed=3)
     m2, r2, _ = build_model("MYUNREST", engd.aln)
     assert not m2.is_reversible()
     eng2 = LikelihoodEngine(engd.aln, m2, r2, dtype=jnp.float64,

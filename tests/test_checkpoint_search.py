@@ -12,7 +12,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tests.test_pallas2 import _setup
+from tests.helpers import dna_problem
 from iqtree2_tpu.search.search import SearchParams, TreeSearch
 from iqtree2_tpu.search.ufboot import UFBoot
 from iqtree2_tpu.utils.checkpoint import Checkpoint
@@ -26,7 +26,7 @@ def _search(eng, aln, ckp, ufboot=None, fixed_iterations=8):
 
 
 def test_resume_identical(tmp_path):
-    eng, _ = _setup(10, npat=96, seed=2)
+    eng, _ = dna_problem(10, npat=96, seed=2)
     aln = eng.aln
 
     # uninterrupted run: two full 8-iteration blocks
@@ -54,7 +54,7 @@ def test_resume_identical(tmp_path):
 
 
 def test_resume_with_ufboot(tmp_path):
-    eng, _ = _setup(8, npat=64, seed=9)
+    eng, _ = dna_problem(8, npat=64, seed=9)
     aln = eng.aln
     uf_full = UFBoot(aln, n_replicates=50, seed=7)
     res_full = _search(eng, aln, None, ufboot=uf_full,

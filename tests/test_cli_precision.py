@@ -25,7 +25,7 @@ REPO = Path(__file__).parent.parent
 
 def _run_cli(tmp_path, extra_args):
     env = dict(os.environ)
-    env["IQTREE2_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     # own cache dir: executables serialized under the
     # subprocess backend config abort when deserialized
     # by the 8-device in-process suite

@@ -3,7 +3,7 @@ splits (reference: tree/constrainttree.cpp)."""
 import numpy as np
 import jax.numpy as jnp
 
-from tests.test_pallas2 import _setup
+from tests.helpers import dna_problem
 from iqtree2_tpu.tree.constraint import TopologyConstraint
 from iqtree2_tpu.tree.topology import Tree
 from iqtree2_tpu.ops.pars import random_stepwise_addition
@@ -30,7 +30,7 @@ def test_constraint_parsing_and_compat():
 
 
 def test_stepwise_addition_respects_constraint():
-    eng, _ = _setup(10, npat=64, seed=1)
+    eng, _ = dna_problem(10, npat=64, seed=1)
     names = eng.aln.names
     c = TopologyConstraint("((t0,t1,t2),(t3,t4));", names)
     rng = np.random.default_rng(3)
@@ -52,7 +52,7 @@ def test_random_nnis_respect_constraint():
 
 
 def test_search_respects_constraint():
-    eng, _ = _setup(9, npat=64, seed=8)
+    eng, _ = dna_problem(9, npat=64, seed=8)
     names = eng.aln.names
     c = TopologyConstraint("((t0,t5),(t1,t6));", names)
     sp = SearchParams(n_init_trees=5, n_nni_trees=3, pop_size=2, seed=4,

@@ -135,12 +135,12 @@ def test_ufboot_refinement_and_ml_site_rates():
     """-bnni refinement (refineBootTrees) + RateMeyerHaeseler ML rates."""
     import numpy as np
     import jax.numpy as jnp
-    from tests.test_pallas2 import _setup
+    from tests.helpers import dna_problem
     from iqtree2_tpu.engine import LikelihoodEngine
     from iqtree2_tpu.search.ufboot import UFBoot
     from iqtree2_tpu.siterates import site_rates_ml
 
-    eng32, tree = _setup(8, npat=64, seed=14)
+    eng32, tree = dna_problem(8, npat=64, seed=14)
     eng = LikelihoodEngine(eng32.aln, eng32.model, eng32.rates,
                            dtype=jnp.float64)
     uf = UFBoot(eng.aln, n_replicates=10, seed=3)
@@ -165,11 +165,11 @@ def test_sankoff_parsimony():
     """Sankoff with unit costs must equal Fitch; asymmetric costs differ
     (reference: tree/phylotreepars.cpp:636)."""
     import numpy as np
-    from tests.test_pallas2 import _setup
+    from tests.helpers import dna_problem
     from iqtree2_tpu.ops import pars
     from iqtree2_tpu.tree.topology import Tree
 
-    eng, tree = _setup(8, npat=48, seed=21)
+    eng, tree = dna_problem(8, npat=48, seed=21)
     aln = eng.aln
     masks = pars.state_bitmasks(aln)
     w = aln.pattern_weights
@@ -198,11 +198,11 @@ def test_sankoff_parsimony():
 def test_modelfinder_auto_mode():
     """-m AUTO: rate schemes on the first base, then bases with the best
     scheme (reference ordering, main/phylotesting.cpp:1347)."""
-    from tests.test_pallas2 import _setup
+    from tests.helpers import dna_problem
     from iqtree2_tpu.modelfinder import run_modelfinder
     from iqtree2_tpu.params import Params
 
-    eng, tree = _setup(6, npat=64, seed=19)
+    eng, tree = dna_problem(6, npat=64, seed=19)
     p = Params(seed=1, model_eps=0.5)
     res = run_modelfinder(eng.aln, p, log=lambda s: None, mode="AUTO",
                           tree=tree)

@@ -9,7 +9,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tests.test_pallas2 import _setup
+from tests.helpers import dna_problem
 from iqtree2_tpu.engine import LikelihoodEngine
 from iqtree2_tpu.model.factory import build_model
 from iqtree2_tpu.model.heterotachy import MixlenEngine, RateHeterotachy
@@ -17,7 +17,7 @@ from iqtree2_tpu.tree.schedule import build_schedule
 
 
 def test_mixlen_degenerate_equals_plain():
-    eng32, tree = _setup(8, npat=64, seed=6, ncat=1)
+    eng32, tree = dna_problem(8, npat=64, seed=6, ncat=1)
     aln = eng32.aln
     model, _, extras = build_model("GTR+H2", aln)
     assert extras.get("mixlen") == 2
@@ -34,7 +34,7 @@ def test_mixlen_degenerate_equals_plain():
 
 
 def test_mixlen_optimization_improves():
-    eng32, tree = _setup(8, npat=96, seed=13, ncat=1)
+    eng32, tree = dna_problem(8, npat=96, seed=13, ncat=1)
     aln = eng32.aln
     model, rates, _ = build_model("GTR+H2", aln)
     me = MixlenEngine(aln, model, rates, dtype=jnp.float64)

@@ -20,11 +20,11 @@ WORKER = textwrap.dedent("""
     jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
     sys.path.insert(0, {repo!r})
     sys.path.insert(0, {repo!r} + "/tests")
-    from tests.test_pallas2 import _setup
+    from tests.helpers import dna_problem
     from iqtree2_tpu.parallel.multihost import DistributedSearch, FileGossip
 
     rank, nranks, root = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-    eng, _ = _setup(8, npat=64, seed=2)
+    eng, _ = dna_problem(8, npat=64, seed=2)
     g = FileGossip(root, rank, nranks)
     ds = DistributedSearch(eng, eng.aln, g, rank, nranks, seed=5,
                            n_init_trees=6, n_rounds=2, round_size=4)
@@ -70,10 +70,10 @@ def test_ufboot_replicate_slicing():
     tree/iqtree.cpp:352-362 per-process sample ranges)."""
     import sys
     sys.path.insert(0, str(REPO) + "/tests")
-    from tests.test_pallas2 import _setup
+    from tests.helpers import dna_problem
     from iqtree2_tpu.search.ufboot import UFBoot
 
-    eng, tree = _setup(8, npat=64, seed=2)
+    eng, tree = dna_problem(8, npat=64, seed=2)
     R = 40
     full = UFBoot(eng.aln, n_replicates=R, seed=3)
     s0 = UFBoot(eng.aln, n_replicates=R, seed=3)

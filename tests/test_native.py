@@ -3,9 +3,8 @@ import numpy as np
 import pytest
 
 from iqtree2_tpu import native
-from tests.test_pallas2 import _setup
+from tests.helpers import dna_problem
 from iqtree2_tpu.tree.topology import Tree
-from iqtree2_tpu.tree.schedule import build_schedule
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain unavailable")
@@ -26,7 +25,7 @@ def test_compress_patterns_parity():
 def test_fitch_parity():
     import os
     from iqtree2_tpu.ops import pars
-    eng, _ = _setup(10, npat=64, seed=4)
+    eng, _ = dna_problem(10, npat=64, seed=4)
     masks = pars.state_bitmasks(eng.aln)
     w = eng.aln.pattern_weights
     rng = np.random.default_rng(2)
@@ -58,26 +57,62 @@ def test_fitch_parity():
         assert got == want
 
 
-def test_plan_stream_parity():
-    import os
-    from iqtree2_tpu.tree import plan2
-    for ntaxa in (8, 33, 64):
-        t = Tree.random_topology([f"t{i}" for i in range(ntaxa)],
-                                 np.random.default_rng(ntaxa))
-        sched = build_schedule(t)
-        p_nat = plan2.build_stream_plan(sched, S=4, C=4)
-        os.environ["IQTREE2_TPU_DISABLE_NATIVE"] = "1"
-        try:
-            import iqtree2_tpu.native as n2
-            n2._tried, n2._lib = False, None   # reset cache
-            p_py = plan2.build_stream_plan(sched, S=4, C=4)
-        finally:
-            del os.environ["IQTREE2_TPU_DISABLE_NATIVE"]
-            n2._tried, n2._lib = False, None
-        for field in ("src_blk", "edge", "is_int", "tip", "dst_row",
-                      "dst_sc", "valid", "node_of", "node_step",
-                      "node_slot"):
-            np.testing.assert_array_equal(
-                getattr(p_nat, field), getattr(p_py, field), err_msg=field)
-        assert p_nat.ring_blocks == p_py.ring_blocks
-        assert p_nat.n_steps == p_py.n_steps
+def _stepwise_both(aln, seed, monkeypatch):
+    """(native tree, Python tree) of random_stepwise_addition."""
+    from iqtree2_tpu.ops import pars
+    a = pars.random_stepwise_addition(aln, np.random.default_rng(seed))
+    with monkeypatch.context() as m:
+        m.setattr(native, "stepwise_addition", lambda *a_, **k_: None)
+        b = pars.random_stepwise_addition(aln, np.random.default_rng(seed))
+    return a, b
+
+
+def _sim_alignment(ntaxa, nsites, protein, seed):
+    from iqtree2_tpu.data.alignment import Alignment
+    from iqtree2_tpu.model.dna import make_dna_model
+    from iqtree2_tpu.model.protein import make_protein_model
+    from iqtree2_tpu.model.rates import RateGamma
+    from iqtree2_tpu.simulator import simulate_alignment
+    from iqtree2_tpu.treeutils import random_tree
+
+    rng = np.random.default_rng(seed)
+    model = make_protein_model("LG") if protein else make_dna_model("JC")
+    tree = random_tree(ntaxa, "yule", rng)
+    seqs = simulate_alignment(tree, model, RateGamma(4, 0.5), nsites, rng)
+    seqs = {n: seqs[n] for n in tree.taxon_names}
+    # a few gaps and ambiguous states
+    names, rows = list(seqs), [list(s) for s in seqs.values()]
+    for r in rows[:3]:
+        r[:5] = "-" * 5
+    rows[3][7] = "?" if protein else "R"
+    return Alignment.from_sequences(
+        names, ["".join(r) for r in rows], seqtype="AA" if protein
+        else "DNA")
+
+
+@pytest.mark.parametrize("case", ["example", "dna70", "protein40"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_stepwise_addition_native_matches_python(case, seed, monkeypatch):
+    """The native stepwise addition picks the Python loop's edge at every
+    step: the same tree, adjacency order and branch lengths."""
+    from pathlib import Path
+
+    from iqtree2_tpu.io.alignment_io import read_alignment
+    if case == "example":
+        aln = read_alignment(Path(__file__).parent / "golden"
+                             / "example.phy")
+    else:
+        aln = _sim_alignment(int(case[-2:]), 400, case.startswith("p"),
+                             seed=7)
+    a, b = _stepwise_both(aln, seed, monkeypatch)
+    assert a.adj == b.adj
+    assert list(a.blen.items()) == list(b.blen.items())
+    assert a.to_newick() == b.to_newick()
+
+
+def test_stepwise_addition_native_declines_fractional_weights():
+    rng = np.random.default_rng(0)
+    masks = (1 << rng.integers(0, 4, size=(6, 20))).astype(np.uint64)
+    seq = list(range(6))
+    assert native.stepwise_addition(masks, np.ones(20), seq).shape == (3, 2)
+    assert native.stepwise_addition(masks, np.full(20, 0.5), seq) is None

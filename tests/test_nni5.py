@@ -5,7 +5,7 @@ Also: 5-branch optimization must never score below 1-branch optimization.
 import numpy as np
 import jax.numpy as jnp
 
-from tests.test_pallas2 import _setup
+from tests.helpers import dna_problem
 from iqtree2_tpu.ops.nni import build_nni_candidates
 from iqtree2_tpu.search.nni import _slot_node
 from iqtree2_tpu.tree.schedule import build_schedule
@@ -18,7 +18,7 @@ def _engine64(eng):
 
 
 def test_nni5_predicted_logl_matches_applied():
-    eng32, tree = _setup(12, npat=64, seed=3)
+    eng32, tree = dna_problem(12, npat=64, seed=3)
     eng = _engine64(eng32)
     eng.optimize_branches(tree, n_rounds=6)
     sched = build_schedule(tree)
@@ -58,7 +58,7 @@ def test_nni5_predicted_logl_matches_applied():
 
 def test_nni5_search_quality():
     from iqtree2_tpu.search.nni import nni_optimize
-    eng32, tree = _setup(10, npat=96, seed=11)
+    eng32, tree = dna_problem(10, npat=96, seed=11)
     eng = _engine64(eng32)
     t1 = tree.copy()
     r5 = nni_optimize(eng, t1, nni5=True)
@@ -72,7 +72,7 @@ def test_nni5_nonrev_matches_applied():
     the 5-branch scores must equal the applied-tree logL and dominate the
     central-branch-only scores."""
     from iqtree2_tpu.model.factory import build_model
-    eng32, tree = _setup(10, npat=64, seed=8)
+    eng32, tree = dna_problem(10, npat=64, seed=8)
     model, rates, _ = build_model("UNREST", eng32.aln)
     eng = LikelihoodEngine(eng32.aln, model, rates, dtype=jnp.float64)
     assert eng._dev_pack.get("Q") is not None

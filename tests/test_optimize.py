@@ -101,11 +101,11 @@ def test_nni_optimize_batch_matches_serial():
     round) must reach the same optimum as the serial per-tree climb on
     each tree (engine._opt_nni_flat_batch_jit / nni_optimize_batch)."""
     import numpy as np
-    from tests.test_pallas2 import _setup
+    from tests.helpers import dna_problem
     from iqtree2_tpu.search.nni import nni_optimize, nni_optimize_batch
     from iqtree2_tpu.tree.topology import Tree
 
-    eng, _ = _setup(10, npat=128, seed=5)
+    eng, _ = dna_problem(10, npat=128, seed=5)
     rng = np.random.default_rng(3)
     trees_a = [Tree.random_topology(eng.aln.names, rng) for _ in range(3)]
     trees_b = [t.copy() for t in trees_a]

@@ -2,7 +2,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tests.test_pallas2 import _setup
+from tests.helpers import dna_problem
 from iqtree2_tpu.engine import LikelihoodEngine
 from iqtree2_tpu.model.factory import build_model
 from iqtree2_tpu.model.pomo import PoMoModel
@@ -32,7 +32,7 @@ def test_pomo_tip_sampling():
 
 
 def test_pomo_engine_runs():
-    eng32, tree = _setup(6, npat=32, seed=2)
+    eng32, tree = dna_problem(6, npat=32, seed=2)
     aln = eng32.aln
     model, rates, extras = build_model("GTR+P+G2", aln)
     assert extras.get("pomo") == 9

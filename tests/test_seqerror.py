@@ -2,14 +2,14 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tests.test_pallas2 import _setup
+from tests.helpers import dna_problem
 from iqtree2_tpu.engine import LikelihoodEngine
 from iqtree2_tpu.model.factory import build_model
 from iqtree2_tpu.model.optimize import optimize_model_parameters
 
 
 def test_eps_zero_matches_plain():
-    eng32, tree = _setup(8, npat=64, seed=7)
+    eng32, tree = dna_problem(8, npat=64, seed=7)
     aln = eng32.aln
     m_e, r_e, ex = build_model("GTR+E{0.0001}+G4", aln)
     assert ex.get("seqerr") == "E"
@@ -46,7 +46,7 @@ def test_tip_rows_follow_reference_formula():
 
 
 def test_epsilon_is_optimized():
-    eng32, tree = _setup(8, npat=96, seed=17)
+    eng32, tree = dna_problem(8, npat=96, seed=17)
     aln = eng32.aln
     m, r, _ = build_model("HKY+E", aln)
     m0, _, _ = build_model("HKY", aln)

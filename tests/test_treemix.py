@@ -2,14 +2,14 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tests.test_pallas2 import _setup
+from tests.helpers import dna_problem
 from iqtree2_tpu.engine import LikelihoodEngine
 from iqtree2_tpu.model.treemix import TreeMixture
 from iqtree2_tpu.tree.topology import Tree
 
 
 def _mk(seed=21, ntaxa=8, npat=96):
-    eng32, t1 = _setup(ntaxa, npat=npat, seed=seed)
+    eng32, t1 = dna_problem(ntaxa, npat=npat, seed=seed)
     eng = LikelihoodEngine(eng32.aln, eng32.model, eng32.rates,
                            dtype=jnp.float64)
     rng = np.random.default_rng(seed + 1)
@@ -40,6 +40,6 @@ def test_treemix_em_improves_and_dominates():
 
 def test_factory_parses_plus_T():
     from iqtree2_tpu.model.factory import build_model
-    eng32, _ = _setup(6, npat=32, seed=1)
+    eng32, _ = dna_problem(6, npat=32, seed=1)
     _, _, extras = build_model("GTR+G4+T", eng32.aln)
     assert extras.get("treemix") is True
